@@ -1,9 +1,9 @@
 #!/usr/bin/env python
 """Per-op HLO self-time profile of the bench decode at any BENCH_* shape.
 
-The round-4 lesson: the decode frame is SERIALIZED on-chip — per-op
-self time converts ~1:1 to throughput — so the top rows of this table
-ARE the optimization queue (docs/PERF.md "Round 4 decode restructuring").
+When the decode frame runs serialized on the device, per-op self time
+converts ~1:1 to throughput and the top rows of this table are the
+optimization queue (PERF.md hypothesis H1 — unconfirmed on the H100).
 This script productizes the recipe used for every measured cost model:
 build the bench setup (all BENCH_* env knobs respected, incl.
 BENCH_ACROSS / BENCH_CTX_GROUPS / BENCH_NET_CACHE), run the pipeline
@@ -26,19 +26,15 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 import jax
-
-jax.config.update(
-    "jax_compilation_cache_dir", os.path.join(REPO, ".jax_cache")
-)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 5)
-
 import numpy as np
 
 import bench
 from rasr_tpu.utils import profiling
+from rasr_tpu.utils.compile_cache import enable_compile_cache
 
 
 def main():
+    enable_compile_cache()
     t0 = time.time()
     fe, scorer, dec, tree = bench.build_setup(
         num_words=int(os.environ.get("BENCH_WORDS", "5000")),

@@ -16,7 +16,7 @@ tests/test_battery.py.
 
 Run (CPU, ~30 min full grid):  python examples/search_error_battery.py
 Env: BATTERY_WORDS / BATTERY_UTTS / BATTERY_NOISE / BATTERY_SEP /
-     BATTERY_DEVICE=tpu (decode on the chip instead of forcing CPU)
+     BATTERY_DEVICE=gpu (decode on the card instead of forcing CPU)
 """
 
 import json
@@ -136,13 +136,13 @@ def large_vocab():
     perf work went to 100k words — and the lookahead correction exists
     FOR large vocabularies. This mode builds the battery task at a
     VOCABULARY SWEEP (default 1k/5k/20k), runs the wide reference decode
-    ON THE CHIP (BATTERY_DEVICE=tpu; CPU reference decodes at K=2048
+    ON THE CARD (BATTERY_DEVICE=gpu; CPU reference decodes at K=2048
     cost 200-400s/utt, which is what capped the old battery at 1k
     words), validates the reference width (K vs 2*K search error), and
     reports the production-point grid with paired-bootstrap CIs for the
     bigram-vs-unigram lookahead delta AT EACH VOCABULARY.
 
-    Run: BATTERY_MODE=lv BATTERY_DEVICE=tpu python examples/search_error_battery.py
+    Run: BATTERY_MODE=lv BATTERY_DEVICE=gpu python examples/search_error_battery.py
     Env: BATTERY_LV_WORDS="1000,5000,20000", BATTERY_UTTS=200,
          BATTERY_NOISE/SEP, BATTERY_REF_K=2048 (checked against 2*K).
     """
@@ -166,9 +166,9 @@ def large_vocab():
     ]
     # the reference decodes are EXHAUSTIVE-fan (branch_hyps = K): at
     # K=2048-4096 the dense fan's quarter-row emission gather output
-    # ([B*K*Db, 4]) tile-pads 32x on TPU (4 -> 128 lanes), so the batch
-    # is split to bound the HLO temp (measured: B=200/K=4096/Db=40 =
-    # 15.6GB for that one gather)
+    # ([B*K*Db, 4]) is large, so the batch is split to bound the
+    # temporary (B=200/K=4096/Db=40 took 15.6GB for that one gather on
+    # an earlier accelerator, which padded its 4 lanes to 128)
     ref_batch = int(os.environ.get("BATTERY_REF_BATCH", "50"))
 
     def prod_cfg(task, K, beam):

@@ -3,7 +3,7 @@
 
 The reference's search API is online (Search::SearchAlgorithm — feed one
 feature at a time, query the current best sentence mid-segment); the
-TPU-native form feeds BLOCKS of frames into a persistent on-device beam
+batched form feeds BLOCKS of frames into a persistent on-device beam
 (search/streaming.StreamingDecoder) so the hot loop stays on-chip and
 host round-trips amortize. This demo builds a tiny tone-word system
 in-process, then "receives" audio block by block like a serving
@@ -16,7 +16,7 @@ frontend would:
     path is the same scan step, so exactness carries over.
 
 Run:  python examples/streaming_demo.py   (CPU, ~1 min; set
-JAX_PLATFORMS= to run on the TPU.)
+RECIPE_ON_GPU=1 to run on the GPU.)
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
-if not os.environ.get("RECIPE_ON_TPU"):
+if not os.environ.get("RECIPE_ON_GPU"):
     import jax
 
     jax.config.update("jax_platforms", "cpu")

@@ -10,7 +10,7 @@ process exchanging file artifacts, so any stage can be rerun or
 inspected in isolation.
 
 Run:  python examples/toy_recipe.py [workdir]
-(CPU by default; set JAX_PLATFORMS= to use the TPU. ~2-4 min on CPU.)
+(CPU by default; set RECIPE_ON_GPU=1 to use the GPU. ~2-4 min on CPU.)
 
 The corpus is synthesized (no datasets ship with the repo): each "word"
 is a sequence of pure tones, one tone per phoneme, separated by low-
@@ -36,7 +36,7 @@ def run_tool(module: str, *args: str, cwd: str) -> str:
     """One tool invocation = one process (like the reference's tools)."""
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO
-    if not env.get("RECIPE_ON_TPU"):
+    if not env.get("RECIPE_ON_GPU"):
         env["JAX_PLATFORMS"] = "cpu"
     t0 = time.time()
     cmd = [sys.executable, "-m", f"rasr_tpu.tools.{module}", *args]

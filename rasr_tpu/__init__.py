@@ -1,8 +1,8 @@
-"""rasr_tpu — a TPU-native speech recognition framework.
+"""rasr_tpu — a JAX speech recognition framework for accelerators.
 
 A from-scratch rebuild of the capabilities of the RWTH ASR toolkit
-(reference: 3dimaging/rasr) designed for TPU hardware: batched tensor
-programs under jit, Pallas kernels for the hot ops, and jax.sharding
+(reference: 3dimaging/rasr) designed for accelerators: batched tensor
+programs under jit (XLA compiles every hot op), and jax.sharding
 meshes for scale-out — replacing the reference's frame-pull Flow
 networks, lazy FSA expansion, and file-merge job parallelism.
 
@@ -11,8 +11,8 @@ Subpackages
 utils     : config system (RASR selector semantics), components, logging,
             statistics, archives          (ref: src/Core/)
 corpus    : Bliss corpus / lexicon / audio I/O (ref: src/Bliss/, src/Audio/)
-ops       : feature frontend, Viterbi DP, segment reductions, Pallas
-            kernels                        (ref: src/Signal/, src/Flow/)
+ops       : feature frontend, Viterbi DP, segment reductions
+                                           (ref: src/Signal/, src/Flow/)
 models    : GMM mixture sets, HMM topology/TDP, allophones, state tying,
             CART, n-gram LMs, NN models, feature scorers
             (ref: src/Mm/, src/Am/, src/Cart/, src/Lm/, src/Nn/)

@@ -3,7 +3,7 @@
 Re-implements the reference's aligner driver
 (ref: src/Speech/Aligner.*, Speech::Alignment, Speech::AlignmentNode):
 per utterance it produces the Viterbi (or Baum-Welch posterior) mapping
-frame -> (allophone state, tied class, weight). TPU-natively, a *batch*
+frame -> (allophone state, tied class, weight). Here, a *batch*
 of utterances is aligned at once: graphs are padded to a common state
 count, emissions for all graph states are gathered from the dense
 ``[B, T, M]`` score tensor, and one banded-Viterbi scan aligns the whole

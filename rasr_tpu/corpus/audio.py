@@ -2,7 +2,7 @@
 
 Replaces the reference's libsndfile-backed Flow input nodes
 (ref: src/Audio/ — wav/raw input with segment-bounded reading). Decoding
-happens host-side into numpy; the TPU pipeline consumes whole-utterance
+happens host-side into numpy; the device pipeline consumes whole-utterance
 sample tensors, not frame-pulled packets.
 
 Supported: PCM/float WAV (stdlib ``wave`` + numpy), headerless raw PCM16.

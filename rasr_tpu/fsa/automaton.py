@@ -4,7 +4,7 @@ Re-implements the reference's FSA core (ref: src/Fsa/ — Fsa::Automaton
 with pluggable semirings, Fsa::StaticAutomaton, ATT text I/O). The
 reference builds *lazy* on-demand automata because its decoders traverse
 them frame by frame; in this framework automata only serve host-side
-model preparation and lattice post-processing (the TPU paths use
+model preparation and lattice post-processing (the device paths use
 compiled dense arrays), so a small eager representation is the right
 tool. Epsilon is label 0, as in the reference.
 """

@@ -9,7 +9,7 @@ am/lm dimensions and per-call scales, matching the reference's multi-
 dimensional semiring with per-dim scales.
 
 All algorithms are host-side numpy/python: lattices are small (hundreds
-of arcs); the TPU is for the frame-synchronous stages.
+of arcs); the accelerator is for the frame-synchronous stages.
 """
 
 from __future__ import annotations

@@ -4,7 +4,7 @@ replace each lattice arc's acoustic score by re-aligning the arc's word
 over its time span under a (new) acoustic model; the workhorse of
 old-style AM rescoring and discriminative-training lattice preparation).
 
-TPU formulation: every arc becomes one row of a single batched banded-
+Batched formulation: every arc becomes one row of a single batched banded-
 Viterbi call (ops/viterbi.py) — arcs' linear alignment graphs are padded
 to a common state count and frame span, so the whole lattice re-scores
 in ONE device dispatch instead of a per-arc loop (the same batching the

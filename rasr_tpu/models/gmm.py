@@ -1,12 +1,13 @@
-"""Gaussian mixture sets with dense TPU scoring layout.
+"""Gaussian mixture sets with a dense batched scoring layout.
 
 Re-implements the reference's mixture-set model and its optimized scorers
 (ref: src/Mm/MixtureSet.*, src/Mm/Density.*, src/Mm/*FeatureScorer*.cc —
-the SSE batch scorers) the TPU way: instead of lazily scoring requested
+the SSE batch scorers) the batched way: instead of lazily scoring requested
 mixtures per frame with SIMD intrinsics, the whole inventory is resident
 as dense ``[M, K, D]`` tensors and ALL mixtures are scored for ALL frames
-of a batch with one gemm (BASELINE.json: "batched Mahalanobis + log-sum-
-exp over mixture densities as dense TPU matmuls").
+of a batch with one gemm pair (the brief's batched Mahalanobis +
+log-sum-exp over mixture densities as dense matmuls: two f32 gemms at
+HIGHEST precision).
 
 Math: for diagonal Gaussians the negative density log-likelihood is
 

@@ -1,6 +1,6 @@
 """Class-based and log-linear-combination language models.
 
-TPU-native re-design of the reference's remaining LM variants
+Batched re-design of the reference's remaining LM variants
 (ref: src/Lm/ — Lm::ClassLm [K?] maps words onto classes and scores
 P(w|h) = P(class(w) | class-history) * P(w | class(w)); Lm::CombineLm
 [K?] combines several LMs log-linearly with per-LM weights).

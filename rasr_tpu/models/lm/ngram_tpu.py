@@ -1,14 +1,14 @@
-"""N-gram LM compiled to HBM-resident hash tables with gather lookups.
+"""N-gram LM compiled to device-resident hash tables with gather lookups.
 
-The TPU-native replacement for the reference's in-decoder LM access
+The batched replacement for the reference's in-decoder LM access
 (ref: src/Lm/BackingOff.* trie walks): the ARPA model is compiled once,
 host-side, into
 
 * a **state space** = all contexts listed in the model (plus the empty
   context, id 0) — these ids ARE the decoder's word histories, so history
   recombination needs no interning (SURVEY §7: "n-gram probabilities
-  compiled into HBM-resident integer-keyed tables so LM lookups are TPU
-  gathers");
+  compiled into HBM-resident integer-keyed tables so LM lookups are
+  device gathers");
 * ``backoff_cost/backoff_state [S]`` arrays;
 * an open-addressing **transition hash table** keyed by (state, word)
   holding (cost, next_state), linear probing with a build-time-verified
@@ -113,9 +113,9 @@ def build_tables(
     # load factor <=1 (BH >= n buckets); an entry lands in its bucket
     # or spills into the next one (8-slot window, build-verified, grow
     # on failure). vs the old 8x-load-factor per-slot probing this is
-    # an 8x smaller table whose probe window is 1-2 aligned wide rows —
-    # at 100k-word LMs the [16.7M,4] table plus 7-row probe windows
-    # cost 332us/frame of HBM gathers (docs/PERF.md).
+    # an 8x smaller table whose probe window is 1-2 aligned wide rows
+    # (the old layout's 100k-word [16.7M,4] table plus 7-row probe
+    # windows dominated the LM's gather time on an earlier accelerator).
     bucket_bits = 2
     bsz = 1 << bucket_bits
     window = 2 * bsz
@@ -224,14 +224,13 @@ def prepare_lookup(tables: NgramTables):
     Must be called OUTSIDE any scan/loop body: the probe-chain
     replication below is ~max_probe x the hash table and XLA does not
     hoist its construction out of while loops — rebuilding it per frame
-    collapses decoder throughput (measured 92 -> 3 audio-s/s).
+    collapses decoder throughput.
 
     Returns ``(packed, bo_packed, rep, uni_packed)``. ``uni_packed`` is
     the DENSE final-level table: the last level of any backoff chain is
     always the empty context, so it is an array lookup by word id — a
-    tiny [V, 2] (cost-bits, next) table the allocator VMEM-pins —
-    instead of a hash probe (HLO-profiled 33us vs ~6us per frame at
-    4096 word-end lookups). Words with no unigram hold the <unk>
+    tiny [V, 2] (cost-bits, next) table that stays in fast memory —
+    instead of a hash probe. Words with no unigram hold the <unk>
     unigram (or cost 99) precomputed, so the separate unk probe level
     disappears too: ``order`` hash probes + 1 unk probe become
     ``order - 1`` probes + 1 dense row gather, exactly.
@@ -262,10 +261,11 @@ def prepare_lookup(tables: NgramTables):
         # b+1. Two device layouts by size:
         # * small/medium: pair-replicate the bucket rows -> ONE row
         #   gather per level ([BH, 2*bsz*4], 2x the packed bytes);
-        # * LARGE (the 100k-word regime): TPU tiles any <128-lane row
-        #   at 128 lanes, so a [BH,32] table pads 4x physically and XLA
-        #   flips it column-major (profiled 36ns/row strided gathers).
-        #   Pack 128//(bsz*4) buckets per 128-lane row instead — EXACT
+        # * LARGE (the 100k-word regime; TPU-derived, unmeasured on the
+        #   H100 — PERF.md H4): a TPU tiled any <128-lane row at 128
+        #   lanes, so a [BH,32] table padded 4x physically and XLA
+        #   flipped it column-major (strided gathers). Pack
+        #   128//(bsz*4) buckets per 128-lane row instead — EXACT
         #   tiling keeps it row-major; the lookup gathers the two rows
         #   holding buckets b and (b+1)&(BH-1) and binary-selects the
         #   bucket within each row (decoder.combo_sel's unpack).

@@ -4,20 +4,19 @@ Re-implements the role of the reference's neural LM integration
 (ref: src/Lm/TF* — Lm::TFRecurrentLanguageModel [MODULE_LM_TF]: a
 TensorFlow RNN LM driven from C++ with interned histories, per-history
 hidden-state caching and batched score requests). JAX is the native
-substrate here, so the "bridge" disappears: the model is a flax LSTM,
-histories are word-id tuples memoizing their hidden state, and scoring
-batches jit-compile.
+substrate here, so the "bridge" disappears: the model is a plain-array
+LSTM (:func:`lstm_cell`, trained with optax), histories are word-id
+tuples memoizing their hidden state, and scoring batches jit-compile.
 
 Primary uses: n-best/lattice rescoring (lattice/flf.rescore_lm accepts
-any LanguageModel) and log-linear combination with the n-gram LM.
+any LanguageModel), log-linear combination with the n-gram LM, and
+first-pass fusion (search/rnn_fusion.py reads the same parameters).
 """
 
 from __future__ import annotations
 
-import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, Sequence, Tuple
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -25,35 +24,78 @@ import optax
 
 from .interface import History, LanguageModel
 
+#: f32 products at full precision: a GPU runs f32 matmuls in TF32 by
+#: default, and fused scores feed exact recombination
+_HIGHEST = jax.lax.Precision.HIGHEST
 
-class LstmLmModule(nn.Module):
-    vocab_size: int
-    embed_dim: int = 64
-    hidden_dim: int = 128
+#: parameter names of the model (a flat dict of arrays):
+#: embed [V, E]; wx [E, 4H]; wh [H, 4H]; b [4H]; proj_w [H, V]; proj_b [V]
+PARAM_NAMES = ("embed", "wx", "wh", "b", "proj_w", "proj_b")
 
-    @nn.compact
-    def __call__(self, tokens, carry=None):
-        """tokens [B, T] -> (logits [B, T, V], final carry)."""
-        emb = nn.Embed(self.vocab_size, self.embed_dim, name="embed")(tokens)
-        cell = nn.OptimizedLSTMCell(self.hidden_dim, name="lstm")
-        B = tokens.shape[0]
-        if carry is None:
-            carry = cell.initialize_carry(jax.random.PRNGKey(0), (B, self.embed_dim))
-        outs = []
-        for t in range(emb.shape[1]):
-            carry, y = cell(carry, emb[:, t])
-            outs.append(y)
-        h = jnp.stack(outs, axis=1)
-        logits = nn.Dense(self.vocab_size, name="proj")(h)
-        return logits, carry
+
+def lstm_cell(wx, wh, b, x, c, h):
+    """One LSTM step: x [..., E], c/h [..., H] -> (c', h').
+
+    Gate order [i, f, g, o] (sigmoid i/f/o, tanh g), one bias on the
+    summed gates — the math of flax's ``LSTMCell``."""
+    H = wh.shape[0]
+    gates = (
+        jnp.matmul(x, wx, precision=_HIGHEST)
+        + jnp.matmul(h, wh, precision=_HIGHEST)
+        + b
+    )
+    i = jax.nn.sigmoid(gates[..., :H])
+    f = jax.nn.sigmoid(gates[..., H : 2 * H])
+    g = jnp.tanh(gates[..., 2 * H : 3 * H])
+    o = jax.nn.sigmoid(gates[..., 3 * H :])
+    c2 = f * c + i * g
+    return c2, o * jnp.tanh(c2)
+
+
+def init_params(key, vocab_size: int, embed_dim: int, hidden_dim: int):
+    """Random parameters (normal embeddings, LeCun-normal input and
+    projection kernels, orthogonal recurrent kernel, zero biases)."""
+    k_emb, k_x, k_h, k_p = jax.random.split(key, 4)
+    lecun = jax.nn.initializers.lecun_normal()
+    orth = jax.nn.initializers.orthogonal()
+    wh = jnp.concatenate(
+        [orth(k, (hidden_dim, hidden_dim)) for k in jax.random.split(k_h, 4)],
+        axis=1,
+    )
+    return {
+        "embed": jax.random.normal(k_emb, (vocab_size, embed_dim)),
+        "wx": lecun(k_x, (embed_dim, 4 * hidden_dim)),
+        "wh": wh,
+        "b": jnp.zeros(4 * hidden_dim),
+        "proj_w": lecun(k_p, (hidden_dim, vocab_size)),
+        "proj_b": jnp.zeros(vocab_size),
+    }
+
+
+def forward(params, tokens, carry=None):
+    """tokens [B, T] -> (logits [B, T, V], final carry (c, h))."""
+    B = tokens.shape[0]
+    H = params["wh"].shape[0]
+    if carry is None:
+        carry = (jnp.zeros((B, H)), jnp.zeros((B, H)))
+    emb = params["embed"][tokens]  # [B, T, E]
+
+    def step(ch, x):
+        c, h = lstm_cell(params["wx"], params["wh"], params["b"], x, *ch)
+        return (c, h), h
+
+    carry, hs = jax.lax.scan(step, carry, jnp.swapaxes(emb, 0, 1))
+    logits = (
+        jnp.matmul(jnp.swapaxes(hs, 0, 1), params["proj_w"], precision=_HIGHEST)
+        + params["proj_b"]
+    )
+    return logits, carry
 
 
 class RnnLm(LanguageModel):
     """LSTM LM with per-history hidden-state cache (bounded LRU-ish)."""
 
-    def __init__(self, module: LstmLmModule, params, vocab: Dict[str, int],
-                 cache_size: int = 10000):
-        self.module = module
+    def __init__(self, params, vocab: Dict[str, int], cache_size: int = 10000):
         self.params = params
         self.vocab = dict(vocab)
         self.inv_vocab = {i: w for w, i in vocab.items()}
@@ -62,21 +104,23 @@ class RnnLm(LanguageModel):
         self._cache_size = cache_size
         self._step = jax.jit(self._step_impl)
 
-    def _step_impl(self, params, token, carry):
-        emb = self.module.apply(
-            {"params": params}, token[None, None], carry,
-            method=lambda m, t, c: m(t, c),
-        )
-        logits, new_carry = emb
-        logp = jax.nn.log_softmax(logits[0, 0])
-        return logp, new_carry
+    @property
+    def embed_dim(self) -> int:
+        return self.params["embed"].shape[1]
+
+    @property
+    def hidden_dim(self) -> int:
+        return self.params["wh"].shape[0]
+
+    @staticmethod
+    def _step_impl(params, token, carry):
+        logits, new_carry = forward(params, token[None, None], carry)
+        return jax.nn.log_softmax(logits[0, 0]), new_carry
 
     def _state_of(self, history: History):
         if history in self._cache:
             return self._cache[history]
         if not history:
-            carry = None
-            logp = None
             # feed <s>
             logp, carry = self._step(self.params, jnp.asarray(self._bos), self._init_carry())
         else:
@@ -88,8 +132,8 @@ class RnnLm(LanguageModel):
         return self._cache[history]
 
     def _init_carry(self):
-        cell = nn.OptimizedLSTMCell(self.module.hidden_dim)
-        return cell.initialize_carry(jax.random.PRNGKey(0), (1, self.module.embed_dim))
+        z = jnp.zeros((1, self.hidden_dim))
+        return (z, z)
 
     # ------------------------------------------------------------ LM api
     def start_history(self) -> History:
@@ -114,42 +158,26 @@ class RnnLm(LanguageModel):
 
     # ------------------------------------------------------------ artifacts
     def save(self, path: str) -> None:
-        """Persist params + vocab (msgpack sidecar to a JSON header),
-        the LM-image analog of the n-gram .lmbin (ref: the reference's
-        reloadable NN-LM graphs/checkpoints)."""
+        """Persist params + vocab (``<path>.npz`` beside a ``<path>.json``
+        header), the LM-image analog of the n-gram .lmbin (ref: the
+        reference's reloadable NN-LM graphs/checkpoints)."""
         import json
 
-        from flax import serialization
-
         with open(path + ".json", "w") as fh:
-            json.dump(
-                {
-                    "vocab": self.vocab,
-                    "embed_dim": self.module.embed_dim,
-                    "hidden_dim": self.module.hidden_dim,
-                },
-                fh,
-            )
-        with open(path + ".msgpack", "wb") as fh:
-            fh.write(serialization.to_bytes(self.params))
+            json.dump({"vocab": self.vocab}, fh)
+        with open(path + ".npz", "wb") as fh:
+            np.savez(fh, **{k: np.asarray(self.params[k]) for k in PARAM_NAMES})
 
     @classmethod
     def load(cls, path: str, cache_size: int = 10000) -> "RnnLm":
         import json
 
-        from flax import serialization
-
         with open(path + ".json") as fh:
             meta = json.load(fh)
         vocab = {w: int(i) for w, i in meta["vocab"].items()}
-        module = LstmLmModule(len(vocab), int(meta["embed_dim"]),
-                              int(meta["hidden_dim"]))
-        template = module.init(
-            jax.random.PRNGKey(0), jnp.zeros((1, 1), jnp.int32)
-        )["params"]
-        with open(path + ".msgpack", "rb") as fh:
-            params = serialization.from_bytes(template, fh.read())
-        return cls(module, params, vocab, cache_size=cache_size)
+        with np.load(path + ".npz") as data:
+            params = {k: jnp.asarray(data[k]) for k in PARAM_NAMES}
+        return cls(params, vocab, cache_size=cache_size)
 
     # ------------------------------------------------------------ training
     @classmethod
@@ -177,15 +205,14 @@ class RnnLm(LanguageModel):
         for i, s in enumerate(seqs):
             tokens[i, : len(s)] = s
             mask[i, 1 : len(s)] = 1.0  # predict positions 1..len-1
-        module = LstmLmModule(V, embed_dim, hidden_dim)
-        params = module.init(jax.random.PRNGKey(seed), jnp.asarray(tokens[:, :1]))["params"]
+        params = init_params(jax.random.PRNGKey(seed), V, embed_dim, hidden_dim)
         opt = optax.adam(learning_rate)
         opt_state = opt.init(params)
 
         @jax.jit
         def train_step(params, opt_state, tokens, mask):
             def loss_fn(p):
-                logits, _ = module.apply({"params": p}, tokens[:, :-1])
+                logits, _ = forward(p, tokens[:, :-1])
                 targets = tokens[:, 1:]
                 ce = optax.softmax_cross_entropy_with_integer_labels(logits, targets)
                 m = mask[:, 1:]
@@ -199,4 +226,4 @@ class RnnLm(LanguageModel):
         mk = jnp.asarray(mask)
         for _ in range(epochs):
             params, opt_state, loss = train_step(params, opt_state, tk, mk)
-        return cls(module, params, vocab)
+        return cls(params, vocab)

@@ -6,8 +6,8 @@ CPU/CUDA math) and its hybrid scorer
 (ref: src/Nn/*FeatureScorer*, ``feature-scorer-type=nn-precomputed-hybrid``:
 emission score = -log p(s|x) + kappa * log p(s), prior-divided, scaled).
 
-TPU-natively the network is a flax module; the CPU/GPU backend switch of
-the reference collapses into XLA. The TF/Python bridge modules of the
+Here the network is a flax module (this module needs flax); the CPU/GPU
+backend switch of the reference collapses into XLA. The TF/Python bridge modules of the
 reference (src/Tensorflow/, src/Nn/Python*) are unnecessary here — JAX
 is already the native substrate.
 """
@@ -43,8 +43,7 @@ class FeedForwardNet(nn.Module):
     activation: str = "relu"
     dropout: float = 0.0
     #: computation dtype for the gemms (params stay f32). "bfloat16"
-    #: runs the MXU at its native rate — the TPU analog of the
-    #: reference's CUDA fp32 path; logits come back f32.
+    #: runs the tensor cores at their native rate; logits come back f32.
     compute_dtype: str = "float32"
 
     @nn.compact
@@ -91,8 +90,8 @@ class BlstmEncoderNet(nn.Module):
     acoustic model the reference reaches only through its TF bridge,
     ref: src/Tensorflow/ TF-based feature scorers / encoder models).
 
-    TPU-natively each direction is one ``nn.RNN`` (lax.scan over an
-    OptimizedLSTMCell — gates batched into single gemms on the MXU);
+    Each direction is one ``nn.RNN`` (lax.scan over an
+    OptimizedLSTMCell — gates batched into single gemms);
     the backward direction runs on the time-reversed sequence and
     re-reverses, and directions concatenate per layer like the
     standard BLSTM stack.
@@ -100,7 +99,7 @@ class BlstmEncoderNet(nn.Module):
 
     num_classes: int
     hidden: Sequence[int] = (256, 256)
-    compute_dtype: str = "float32"  # "bfloat16": gate gemms on the MXU
+    compute_dtype: str = "float32"  # "bfloat16": gate gemms in bf16
 
     @nn.compact
     def __call__(self, x, lengths=None, train: bool = False):
@@ -124,7 +123,7 @@ class ConformerBlock(nn.Module):
     """One conformer block: ½FF -> MHSA -> conv module -> ½FF, all
     residual, final LayerNorm (Gulati et al. 2020; see PAPERS.md).
 
-    TPU notes: every hot op is an MXU gemm (QKV/out projections, FF
+    Shape notes: every hot op is a gemm (QKV/out projections, FF
     mats, pointwise convs) or a short depthwise conv; attention uses a
     dense [B, 1, T, T] validity mask so padded frames neither attend
     nor are attended to (static shapes, no dynamic slicing)."""
@@ -203,7 +202,7 @@ class ConformerEncoderNet(nn.Module):
     ff_mult: int = 4
     conv_kernel: int = 15
     dropout: float = 0.0
-    #: "bfloat16" runs every gemm/conv on the MXU at its native rate;
+    #: "bfloat16" runs every gemm/conv at the bf16 tensor-core rate;
     #: params and LayerNorms stay f32, logits return f32
     compute_dtype: str = "float32"
 

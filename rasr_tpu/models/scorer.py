@@ -71,22 +71,14 @@ class GmmFeatureScorer(FeatureScorer):
         scale: float = 1.0,
         max_approx: bool = True,
         var_floor: float = 1e-4,
-        use_pallas: bool = False,
     ):
         self.tensors: ScoringTensors = make_scoring_tensors(mixtures, var_floor)
         self.scale = scale
         self.max_approx = max_approx
-        self.use_pallas = use_pallas
         self.num_classes = mixtures.num_mixtures
         self._jit = jax.jit(self._score)
 
     def _score(self, feats: jnp.ndarray) -> jnp.ndarray:
-        if self.use_pallas:
-            from ..ops.pallas.gmm_kernel import mixture_scores_fused
-
-            return self.scale * mixture_scores_fused(
-                feats, self.tensors, self.max_approx
-            )
         return self.scale * mixture_scores(feats, self.tensors, self.max_approx)
 
     def score(self, feats: jnp.ndarray) -> jnp.ndarray:

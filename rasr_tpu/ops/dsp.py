@@ -1,6 +1,6 @@
 """Miscellaneous DSP ops: energy, silence detection, FIR filtering, delay.
 
-TPU-native equivalents of the reference's remaining Signal flow nodes
+Batched equivalents of the reference's remaining Signal flow nodes
 (ref: src/Signal/ — energy node, silence detection, linear filtering,
 delay [K?]): batched tensor programs over ``[B, T, ...]`` instead of
 per-frame packet pulls. All are jit-safe with static shapes.
@@ -78,7 +78,7 @@ def autocorrelation(frames: jnp.ndarray, max_lag: int) -> jnp.ndarray:
     """Per-frame autocorrelation r[0..max_lag] (ref: the autocorrelation
     flow node feeding LPC/AR estimation). frames ``[..., T, L]`` ->
     ``[..., T, max_lag+1]``; computed via the power spectrum (one rfft,
-    MXU/VPU-friendly) — exact circular-free autocorrelation through
+    matmul-friendly) — exact circular-free autocorrelation through
     zero padding."""
     L = frames.shape[-1]
     n = 1
@@ -184,7 +184,9 @@ def harmonic_sum_pitch(
                 sel[h - 1, c] += 0.5
             if h < F - 1:
                 sel[h + 1, c] += 0.5
-    hsum = jnp.matmul(power, jnp.asarray(sel))  # [..., T, C]
+    hsum = jnp.matmul(
+        power, jnp.asarray(sel), precision=jax.lax.Precision.HIGHEST
+    )  # [..., T, C]
     best = jnp.argmax(hsum, axis=-1)
     f0 = jnp.asarray(cand.astype(np.float32) * hz_per_bin)[best]
     total = jnp.maximum(jnp.sum(power, axis=-1), 1e-10)

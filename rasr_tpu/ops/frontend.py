@@ -1,6 +1,6 @@
 """Batched acoustic feature frontend (MFCC / filterbank / LDA).
 
-TPU-native replacement for the reference's Flow DSP chain
+Batched replacement for the reference's Flow DSP chain
 (ref: src/Signal/Preemphasis.*, Window.*, FastFourierTransform.*,
 FilterBank.*, Cepstrum.*, Normalization.*, Regression.*, and the
 matrix-multiplication/LDA flow node). Where the reference pulls one frame
@@ -8,15 +8,14 @@ at a time through an XML dataflow graph, this frontend maps whole padded
 utterance batches ``[B, S]`` to feature tensors ``[B, T, D]`` in one jitted
 program.
 
-Design notes (TPU-first):
+Design notes:
 
 * Framing is a strided gather (reshape-friendly), windowing a broadcast
   multiply.
 * The power spectrum is computed either via ``jnp.fft.rfft`` or as a
   **real DFT by matmul** with precomputed cos/sin bases — the matmul path
-  rides the MXU and fuses with the surrounding elementwise ops under XLA.
-  An opt-in fused Pallas kernel (ops/pallas/frontend_kernel) keeps the
-  whole windowed-DFT→mel→log→DCT chain in VMEM (``use_pallas=True``).
+  fuses with the surrounding elementwise ops under XLA. Every f32 matmul
+  runs at ``Precision.HIGHEST`` (a GPU would otherwise use TF32).
 * Mel filterbank, DCT (cepstrum) and LDA are all matmuls by construction.
 * CMVN masks padded frames; all shapes are static (bucketed batches).
 
@@ -398,14 +397,10 @@ class FeatureFrontend:
         lda: Optional[np.ndarray] = None,
         delta_order: int = 0,
         vtln_warp: Optional[np.ndarray] = None,
-        use_pallas: bool = False,
     ):
         self.cfg = cfg
         self.splice_context = splice_context
         self.delta_order = delta_order
-        # opt-in fused Pallas MFCC kernel (ops/pallas/frontend_kernel):
-        # kept off by default because remote TPU Pallas compiles are slow
-        self.use_pallas = use_pallas
         self.params = make_params(cfg)
         self.lda = None if lda is None else jnp.asarray(lda, jnp.float32)
         # VTLN: warp matrix [K, K] applied on the power spectrum before
@@ -437,12 +432,7 @@ class FeatureFrontend:
         cfg = self.cfg
         x = preemphasize(samples.astype(jnp.float32), cfg.preemphasis)
         frames = frame_signal(x, max_frames, cfg)
-        if self.use_pallas:
-            from .pallas.frontend_kernel import mfcc_frames_fused
-
-            feats = mfcc_frames_fused(frames, self.params, cfg)
-        else:
-            feats = mfcc_from_frames(frames, self.params, cfg)
+        feats = mfcc_from_frames(frames, self.params, cfg)
         n_frames = jnp.where(
             lengths >= cfg.frame_length,
             1 + (lengths - cfg.frame_length) // cfg.frame_shift,

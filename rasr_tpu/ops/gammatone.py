@@ -4,10 +4,10 @@ Re-implements the reference's alternative RWTH frontend
 (ref: src/Signal/GammaTone.* — 4th-order gammatone filterbank on an ERB
 scale with temporal integration, the classic RWTH "GT features").
 
-TPU-native formulation: instead of recursive IIR filtering (sequential,
+Batched formulation: instead of recursive IIR filtering (sequential,
 scalar), each gammatone channel is applied as an FIR convolution with a
 truncated impulse response — a dense [num_channels, kernel] matmul over
-framed samples, which is exactly the MXU-friendly shape. Temporal
+framed samples, which is exactly the matmul-friendly shape. Temporal
 integration (Hanning-weighted energy smoothing over ~25ms) and 10th-root
 compression follow the published RWTH GT pipeline, then a DCT
 decorrelates channels like the cepstrum stage.

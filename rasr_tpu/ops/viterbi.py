@@ -1,6 +1,6 @@
 """Batched banded Viterbi / forward-backward over linear HMM graphs.
 
-TPU-native replacement for the reference's frame-synchronous alignment DP
+Batched replacement for the reference's frame-synchronous alignment DP
 (ref: src/Speech/Aligner.* — time-sync Viterbi over a per-utterance
 transducer with beam pruning). The reference walks a lazily expanded FSA
 frame by frame; here alignment graphs are *linear chains with a
@@ -8,7 +8,7 @@ bandwidth-3 predecessor structure* (loop / forward / skip — exactly the
 0-1-2 topology the reference's transducers produce for a fixed
 pronunciation with optional skippable silence), so the whole DP is a
 ``lax.scan`` over time of dense ``[B, S]`` vector ops — no pruning needed
-because the graph is small and dense occupancy is MXU/VPU-friendly.
+because the graph is small and dense occupancy is accelerator-friendly.
 
 Conventions: all scores are -log ("costs", min-sum); BIG is the finite
 pseudo-infinity (1e30) so f32 arithmetic never produces NaN via inf-inf.

@@ -2,7 +2,7 @@
 
 The reference has no in-process distribution at all — scale-out is N
 independent jobs over corpus partitions with results merged via files
-(SURVEY §2.8). The TPU-native replacement is a first-class component:
+(SURVEY §2.8). The replacement here is a first-class component:
 a ``(data, model)`` mesh where
 
 * utterance batches shard over ``data`` (DP — the reference's corpus

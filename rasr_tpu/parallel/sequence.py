@@ -2,7 +2,7 @@
 
 The reference needs no sequence parallelism — its Flow network streams
 one frame at a time with O(1) live state (SURVEY §5 long-context). The
-TPU inversion processes whole utterances as dense tensors, so VERY long
+batched inversion processes whole utterances as dense tensors, so VERY long
 recordings (hours of audio: meetings, broadcast) can exceed one chip's
 HBM on the time axis. This module shards the time axis over a mesh axis:
 

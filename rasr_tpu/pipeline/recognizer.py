@@ -3,7 +3,7 @@
 Re-implements the reference's recognizer
 (ref: src/Speech/Recognizer.* — per segment: restart search, feed
 features, log <recognized> with timing/RTF statistics, online WER vs the
-reference orth, optional lattice archive write). TPU-natively whole
+reference orth, optional lattice archive write). Here whole
 batches decode at once; per-segment structured records keep the same
 semantic fields (segment id, orth, score, RTF).
 """

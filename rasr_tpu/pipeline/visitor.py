@@ -2,7 +2,7 @@
 
 Re-implements the reference's corpus processing drivers
 (ref: src/Speech/CorpusVisitor.*, CorpusProcessor.*, DataExtractor.*):
-there, processors visit one segment at a time; TPU-natively the visitor
+there, processors visit one segment at a time; here the visitor
 yields *batches* of segments bucketed by duration (static shapes per
 bucket minimize recompilation and padding waste) with partition /
 segment-list selection preserved.

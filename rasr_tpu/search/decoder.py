@@ -1,13 +1,13 @@
 """Vectorized frame-synchronous beam search over the prefix tree.
 
-The TPU re-design of the reference's word-conditioned tree search
+The batched re-design of the reference's word-conditioned tree search
 (ref: src/Search/WordConditionedTreeSearch.* and
 src/Search/AdvancedTreeSearch/SearchSpace.cc — time-synchronous Viterbi
 over the lexical prefix tree with tree copies conditioned on the LM
 history, acoustic beam + histogram pruning, word-end LM application with
 history recombination, ref-counted tracebacks).
 
-TPU formulation (BASELINE.json: "vectorized frame-synchronous token
+Formulation (BASELINE.json: "vectorized frame-synchronous token
 passing with top-k pruning on-chip"):
 
 * a hypothesis is a dense slot ``(tree_state, lm_state, score, bp)``;
@@ -23,12 +23,12 @@ passing with top-k pruning on-chip"):
   predecessor record), assembled on the host after the scan — replacing
   the reference's ref-counted Trace garbage collection.
 
-Performance shape (measured on v5e, HLO-profiled): the cost driver is
-GATHER INDICES — a random gather costs ~7 cycles per index for single
-elements and ~1.5-2 cycles per index when each index fetches a packed
-ROW of columns; row width is nearly free, and sorts/top-k are
-secondary. The decoder is therefore organized around "one gather, many
-columns":
+Performance shape (an earlier accelerator's cost model, unmeasured on
+the H100 — PERF.md H2):
+the cost driver was GATHER INDICES — a single-element gather cost
+several times more per index than a gather fetching a packed ROW of
+columns, row width was nearly free, and sorts/top-k were secondary.
+The decoder is therefore organized around "one gather, many columns":
 
 * **dense slots**: each state's first two out-arcs + loop/class columns
   live in one packed ``[S+1, 9]`` table — a single row gather per hyp;
@@ -36,11 +36,11 @@ columns":
   expanded only for the top ``branch_hyps`` hypotheses that actually sit
   at fan-out states (packed 3-column arc rows);
 * **root re-entry**: root-arc emission scores come from a static one-hot
-  MATMUL (MXU streams beat the gather unit for fixed index sets);
-  per-history candidates are pure broadcasts;
+  MATMUL at HIGHEST precision (a matrix unit beat the gather unit for
+  fixed index sets); per-history candidates are pure broadcasts;
 * every beam/sort/merge selection gathers packed rows (``rowsel``), and
   ``take_along_axis`` is never used on the hot path (its batched-gather
-  lowering measures ~5x slower than flat gathers);
+  lowering was several times slower than flat gathers);
 * optional ``expansion_limit`` ranks candidates BEFORE the emission
   gather so only E survivors pay emission-gather indices at all;
 * ``root_select``: the root fan-out (word starts — half the candidate
@@ -49,9 +49,9 @@ columns":
 * ``deferred_emission``: emission is a function of the destination
   state (= recombination key), so it is added once for the K+R3
   survivors after top-K instead of per expansion candidate;
-* **sort widths budget to powers of 2**: XLA's TPU sort pads the sorted
-  dimension to the next power of 2 (HLO-profiled: a 4864-wide sort
-  costs the same as 8192), so pruning caps are chosen to land every
+* **sort widths budget to powers of 2** (TPU-derived, unmeasured on
+  the H100 — PERF.md H3): the TPU sort padded the sorted dimension to
+  the next power of 2, so pruning caps are chosen to land every
   per-frame sort at or under a pad boundary (see bench.py).
 """
 
@@ -381,10 +381,9 @@ def _row_offsets(idx, stride):
     """Per-element batch-row offsets (batch_index * stride) for flat
     global-index gathers, in the flat iota//W form: ANY [B]-shaped
     offset (in-body arange, trace-time np constant, factored
-    broadcasted_iota) gets strength-reduced by XLA into one shared [B]
-    iota fusion that is then shuttled VMEM->HBM->VMEM between its
-    distant consumers (~34us/frame at the headline shape, more at
-    large vocab — docs/PERF.md "[B] row-offset shuttle"). The flat
+    broadcasted_iota) got strength-reduced by XLA into one shared [B]
+    iota fusion shuttled between memory spaces between its distant
+    consumers on an earlier accelerator (unmeasured on the H100). The flat
     iota(B*W)//W at the index shape resists the refactor and fuses
     into each gather's own index fusion."""
     B = idx.shape[0]
@@ -413,8 +412,8 @@ def _ride_flags(cfg: "BeamConfig", bla, partitioned: bool):
     the dense/branch node-crossing delta gathers without the per-frame
     [B,K]/[B,Wbr] class lookups. Both are functions of the
     recombination key (class of lm state x lookahead node of state), so
-    per-key winners carry the right values through the dedup sorts —
-    docs/PERF.md "Bigram-lookahead hot-loop cost" fix 2. Partitioned
+    per-key winners carry the right values through the dedup sorts.
+    Partitioned
     beams keep the gather path (the all_gather merge strips payload)."""
     use_bla = (
         bla is not None
@@ -531,9 +530,8 @@ def _pad4(flat):
 
 def _gsel(tab4, idx):
     """Global quarter-row gather: element selection from a SHARED
-    (non-batched) flat table viewed [N/4, 4] — the TPU lowers 1-D
-    element gathers to a ~12ns/index serial path while row gathers run
-    ~1.8ns/row (see fsel, which is the batched-table variant)."""
+    (non-batched) flat table viewed [N/4, 4] (see fsel, which is the
+    batched-table variant and says why)."""
     rows = tab4[idx >> 2]
     lo = jnp.where((idx & 1) == 0, rows[..., 0], rows[..., 1])
     hi = jnp.where((idx & 1) == 0, rows[..., 2], rows[..., 3])
@@ -550,11 +548,11 @@ def _build_state_pack(tree: TreeTables, cfg: BeamConfig, bla=None):
     crossing pair ids ride as two extra columns.
 
     CARRIER DTYPE: int32, with the f32 cost columns BITCAST IN (ids
-    native). The TPU vector unit flushes denormals and canonicalizes
-    NaNs whenever an f32 tensor passes through a fused copy/relayout/
-    select, so f32 tensors DESTROY int bit patterns smuggled in by
+    native). An earlier accelerator flushed denormals and canonicalized
+    NaNs whenever an f32 tensor passed through a fused copy/relayout/
+    select, so f32 tensors can DESTROY int bit patterns smuggled in by
     bitcast (small ids are denormal patterns, -1 is a NaN pattern) —
-    measured on hardware, see docs/PERF.md "bit-pattern transport".
+    PERF.md "Bit-pattern transport"; chip_smoke checks it on the card.
     Int tensors are bit-exact carriers (same convention as the LM
     tables, models/lm/ngram_tpu.py), and bitcasts cost no ALU.
     """
@@ -566,10 +564,10 @@ def _build_state_pack(tree: TreeTables, cfg: BeamConfig, bla=None):
     ecls_flag = jnp.where(
         tree.branch_deg > 0, -tree.emission_class - 1, tree.emission_class
     )
-    # one packed 8-column row per state (a split into two 3-col tables
-    # with bit-packed dst/cls measured SLOWER on v5e: 114 vs 129
-    # audio-s/s — two dependent gathers beat one wide row only if both
-    # land in VMEM, which the allocator did not do here)
+    # one packed 8-column row per state (earlier-accelerator finding,
+    # unmeasured on the H100: a split into two 3-col tables with bit-packed dst/cls was
+    # slower there — two dependent gathers beat one wide row only when
+    # both tables stay in fast memory)
     state_pack = jnp.stack(
         [
             bc_i(tree.loop_cost),  # 0 (f32 bits)
@@ -584,9 +582,8 @@ def _build_state_pack(tree: TreeTables, cfg: BeamConfig, bla=None):
         axis=1,
     )  # [S+1, 8] int32
     # branch CSR head (ptr, deg) folded into the state row when it fits
-    # one int32: the separate [S+1,2] table gathers from HBM at
-    # ~15ns/row (251us/frame profiled) while state_pack rides along
-    # VMEM-pinned — the 9th column is effectively free
+    # one int32: one row gather instead of two (the 9th column rode
+    # along nearly free on an earlier accelerator; unmeasured on the H100)
     Db = tree.branch_degree
     deg_bits = max(int(Db).bit_length(), 1)
     A_br = int(tree.branch_dst.shape[0])
@@ -683,7 +680,7 @@ def _make_step(
     deep_arc = use_deep and not lazy_phi
     # carry-riding of (class, applied phi2): kills the per-frame
     # [B,K]/[B,Wbr]/[B,KW] class lookups + the word-end undo gather at
-    # the cost of extra sort-payload operands (docs/PERF.md fix 2)
+    # the cost of extra sort-payload operands
     ride_cls, ride_phi = _ride_flags(cfg, bla, Pn > 1)
     # (bp, class) pack into one int32 payload operand when the record
     # cap is known and fits: each extra variadic-sort operand measured
@@ -772,7 +769,7 @@ def _make_step(
             [tree.branch_ptr[:-1], tree.branch_deg], axis=1
         )  # [S+1, 2]: one row gather replaces two element gathers
     # int32 carrier rows (cost columns bitcast in): see _build_state_pack
-    # — f32 tensors destroy smuggled int bit patterns on the TPU VPU
+    # — f32 tensors can destroy smuggled int bit patterns
     branch_cols = [
         tree.branch_dst,
         bc_i(tree.branch_cost + (la_coeff * tree.branch_dla if use_la else 0.0)),
@@ -786,9 +783,8 @@ def _make_step(
     # per-(hyp, slot) gather of Kb*Db short rows collapses to ONE
     # Kb-row gather from a pre-widened [A', Db*C] table whose row p is
     # branch_pack[p:p+Db] flattened (row-gather cost is per INDEX, width
-    # nearly free — HLO profile 2026-08-21: the [B*Kb*Db, 3] form ran
-    # 89us/frame + a 25us relayout at B=64/Kb=146/Db=7; this is ~7x
-    # fewer gather indices). Budgeted: skipped for huge-fan networks
+    # nearly free on an earlier accelerator; unmeasured on the H100 — ~7x
+    # fewer gather indices than the [B*Kb*Db, 3] form). Budgeted: skipped for huge-fan networks
     # where A'*Db*C would blow memory (those use branch_width anyway).
     Cb = branch_pack.shape[1]
     A_arcs = branch_pack.shape[0]
@@ -851,8 +847,8 @@ def _make_step(
     # fetches the we columns AND the state_pack row in ONE row gather;
     # the merge then carries the selected rows into the next frame's
     # carry, eliminating the per-frame [B,K] state_pack gather entirely
-    # (HLO-profiled 102us/frame at B=64, K=1024; a [S+1,15] row gathers
-    # at the same ~1.5ns/row as the 6-col one)
+    # (a wide row gathered at the cost of a narrow one on an earlier
+    # accelerator)
     ride_pk = Pn == 1
     C_sp = state_pack.shape[1]
     S1 = state_pack.shape[0]
@@ -866,17 +862,16 @@ def _make_step(
         combo_cols.append(state_pack)
         combo_pack = jnp.concatenate(combo_cols, axis=1)
         # [S+1, W*C_we (+1) + C_sp]
-        # Packed-row layout for LARGE tables (the 100k-vocab residency
-        # story, r3 verdict item 2): TPU tiles a narrow row-major [S,C]
-        # i32 table as (8,128) — C pads to 128 lanes, ~128/C x physical
-        # memory — so above ~64MB physical XLA flips the table to
-        # COLUMN-major and the hot word-end row gather degrades to a
-        # strided path (HLO 2026-08-21 at 891k states: 4.5 ns/row vs
-        # 1.5 at 56k states, 445us/frame). Packing ``pack_f`` states
-        # per row restores dense row-major tiles at ~1x memory; the
-        # gather fetches one wide row and log2(pack_f) int32 vector
-        # selects unpack it (int selects are bit-safe for the smuggled
-        # f32 cost columns; an f32 relayout would flush denormals).
+        # Packed-row layout for LARGE tables (TPU-derived, unmeasured
+        # on the H100 — PERF.md H4, ROADMAP D2): a TPU tiled a narrow
+        # row-major [S,C] i32 table as (8,128) — C padded to 128 lanes
+        # — so above ~64MB physical XLA flipped the table to
+        # COLUMN-major and the hot word-end row gather degraded to a
+        # strided path. Packing ``pack_f`` states per row restores
+        # dense row-major tiles at ~1x memory; the gather fetches one
+        # wide row and log2(pack_f) int32 vector selects unpack it (int
+        # selects are bit-safe for the smuggled f32 cost columns). The
+        # canary's packed-rows+lm128 config checks it on the card.
         Ccmb = combo_pack.shape[1]
         S_rows = combo_pack.shape[0]
         pack_f = 1
@@ -887,8 +882,7 @@ def _make_step(
         # around is driven by the 128-lane tile pad (128/C x physical
         # waste); wide tables (across-word wmax stacks: C~119) pad
         # ~1x, stay row-major on their own, and packing them would
-        # multiply gather bytes 8x (measured: across-word ctx4
-        # 193 -> 125 au-s/s with the width-blind gate, 2026-08-21)
+        # multiply gather bytes 8x
         if Ccmb * 2 <= 128 and S_rows * 128 * 4 > _thr:
             while Ccmb * pack_f * 2 <= 128 and pack_f < 8:
                 pack_f *= 2
@@ -903,9 +897,8 @@ def _make_step(
             )
             # strided slices + axis-1 concat, NOT reshape: a reshape
             # forces a row-major relayout of the UNPACKED [S,C] table
-            # first, whose 128-lane padding is ~9x physical (12.3GB HLO
-            # temp at 25.8M states — OOMed the across-word worst-case
-            # bench). Slice d picks rows d, f+d, 2f+d, ... so
+            # first, whose 128-lane padding was ~9x physical on an earlier
+            # accelerator (it ran the across-word worst case out of memory). Slice d picks rows d, f+d, 2f+d, ... so
             # concat(axis=1) row p = rows p*f .. p*f+f-1, identical to
             # the reshape result, with only the ~1x packed table as the
             # materialized output.
@@ -915,32 +908,29 @@ def _make_step(
 
     if use_rsel:
         # root-selection path: (dst, cls) rows for the R3 survivors
-        # only. Kept int32 (NOT bitcast to f32): XLA lowers small-table
-        # gathers through arithmetic f32 paths on TPU that flush the
-        # denormal bit patterns of small ints to zero.
+        # only. Kept int32 (NOT bitcast to f32): XLA has lowered
+        # small-table gathers through arithmetic f32 paths that flushed
+        # the denormal bit patterns of small ints to zero.
         root_pack = jnp.stack(
             [tree.root_dst, tree.root_cls], axis=1
         )  # [G, 2] int32
     else:
-        # root emission selection as a static one-hot matmul: a [B,G]
-        # gather costs ~7 cycles/index on the TPU gather unit; the MXU
-        # streams the same selection in ~no time (one-hot rows select
-        # exactly, and HIGHEST precision keeps f32 values intact)
+        # root emission selection as a static one-hot matmul (a matrix
+        # unit beat a [B,G] gather on an earlier accelerator; unmeasured
+        # on the H100). One-hot rows select exactly, and HIGHEST precision
+        # keeps f32 values intact — TF32 would round them
         root_sel = jax.nn.one_hot(
             tree.root_cls, M, dtype=jnp.float32, axis=0
         )  # [M, G]
 
     def fsel(x, idx):
-        """Batched element selection in ROW-GATHER form: TPU lowers 1-D
-        element gathers to a ~12 ns/index serial path, while 2-D row
-        gathers run ~1.8 ns/row (HLO-profiled on v5e: the emission
-        selection dropped 467us -> ~70us per frame at B=16, E=4096 when
-        rewritten this way). QUARTER-ROW form: view the flat table as
-        [B*N/4, 4] (a free reshape — no duplicated-table materialization,
-        which profiled at ~46us/frame in layout copies), row-gather at
-        idx>>2, then pick the lane with two vector selects. Also halves
-        the gather source vs the old 2x-duplicated table (better VMEM
-        pin odds). Microbenched 19.6us vs 26.2us at B=64/1536 idx."""
+        """Batched element selection in ROW-GATHER form (TPU-derived,
+        unmeasured on the H100 — PERF.md H2): a TPU lowered 1-D element
+        gathers to a serial path several times slower per index than
+        2-D row gathers. QUARTER-ROW form: view the flat table as
+        [B*N/4, 4] (a free reshape — no duplicated-table
+        materialization), row-gather at idx>>2, then pick the lane with
+        two vector selects. Exact on any backend (selects only)."""
         Bx, N = x.shape
         flat = x.reshape(Bx * N)
         pad = (-(Bx * N)) % 4
@@ -1249,12 +1239,12 @@ def _make_step(
             rs_idx = rs_sorted[1][:, :R3]
             rs_h = jnp.where(rs_idx < G, 0, 1 + (rs_idx - G) // gcap)
             rs_g = jnp.where(rs_idx < G, rs_idx, (rs_idx - G) % gcap)
-            # source-hyp columns via one-hot MXU matmul: rs_h indexes a
-            # [B,H] table (H=16) — a [B,R3,H]@[B,H,2] batched matmul
-            # streams through the MXU in ~us while the equivalent row
-            # gather profiled 50us/frame (32768 rows). Ids must be exact
-            # in f32 (< 2^24): bp ids are bounded by T*R << 2^24, so the
-            # guard is on the LM state count only.
+            # source-hyp columns via a HIGHEST-precision one-hot matmul:
+            # rs_h indexes a [B,H] table (H=16) — a [B,R3,H]@[B,H,2]
+            # batched matmul beat the equivalent row gather on an earlier
+            # accelerator (unmeasured on the H100). Ids must be exact in f32
+            # (< 2^24): bp ids are bounded by T*R << 2^24, so the guard
+            # is on the LM state count only.
             # ids must be exact in f32 (< 2^24) for the one-hot matmul
             # (h_bp may carry the packed (bp+1)*C + class payload)
             need_cls_col = ride_phi and not pack_pc
@@ -1508,8 +1498,8 @@ def _make_step(
         # stability adds an iota operand + tie compares we never need
         # (ties beyond (key, score) pick an arbitrary equal-score path),
         # and sorting values instead of top_k-then-gather skips the
-        # index stack, its layout copy, and the row gather (HLO-profiled:
-        # ~150us/frame at B=16, width 10241).
+        # index stack, its layout copy, and the row gather (unmeasured
+        # on the H100).
         def recombine_topk(key_parts, score, pays, k):
             """Dedup by key (keep per-key min score) then top-k by score.
 
@@ -1704,8 +1694,8 @@ def _make_step(
         kw_iota = jnp.broadcast_to(
             jnp.arange(KW, dtype=jnp.int32)[None, :], (B, KW)
         )
-        # operand packing: each extra variadic-sort operand costs
-        # ~13us/frame at this width — pack (bp, lm) and (word, next)
+        # operand packing: each extra variadic-sort operand cost time
+        # on an earlier accelerator (unmeasured on the H100) — pack (bp, lm) and (word, next)
         # pairs into single int32 columns when their static bounds fit
         # (bp < rec_cap = R*T, lm < L, word < V+1 from the dense
         # unigram table, next < S1; all trace-time constants)
@@ -1727,8 +1717,7 @@ def _make_step(
             # stage 2 ranks the survivors' [B, R*wmax] slot fan:
             # KW + R*wmax sorted instead of KW*wmax. Word-end-slot
             # stacking (homophones, grouped across-word re-entries)
-            # otherwise multiplies the dominant selection width
-            # (docs/PERF.md across-word table: 119 -> see bench).
+            # otherwise multiplies the dominant selection width.
             pre0 = jnp.where(
                 ww[..., 0] != WORD_NONE,
                 we_base + bc_f(wpk[..., 0, 1])
@@ -1901,11 +1890,9 @@ def _make_step(
 
         # --------------- merge word-end re-entries (+ root-select arrivals)
         m_score = jnp.concatenate([w_score, root_score], axis=1)
-        # top_k + row gather beats a payload value-sort at this width
-        # (K+R: 168 vs 158 audio-s/s at B=64; re-measured at KW+R=1600:
-        # 333 vs 283 — the 4-operand sort loses MORE than the op-count
-        # model predicts, don't redo); re-sorting the carry by state id
-        # for gather locality also measured slower
+        # top_k + row gather beat a payload value-sort at this width on
+        # an earlier accelerator, as did not re-sorting the carry by
+        # state id for gather locality (unmeasured on the H100)
         if ride_cls:
             # re-entry hyps take the class of their NEW lm state (a
             # [B,R] lookup — the only per-frame class gather left)
@@ -1943,11 +1930,11 @@ def _make_step(
             # append the state rows so the merge delivers next frame's
             # pk directly (word-end re-entries get a tiny [B,R] gather);
             # everything is an int32 carrier — this relayout is exactly
-            # where an f32 carrier got its smuggled ids flushed on TPU
+            # where an f32 carrier once got its smuggled ids flushed
             if pack_f > 1:
                 # the packed combo row already carries the state-pack
                 # columns — avoids a second strided gather from the
-                # column-major [S,C_sp] table (HLO: 30ns/row at 891k)
+                # column-major [S,C_sp] table
                 spk_root = combo_sel(root_state)[..., Ccmb - C_sp :]
             else:
                 spk_root = state_pack[root_state]  # [B,R,C_sp] int32
@@ -2039,7 +2026,7 @@ def init_carry(
     ``state_pack`` is ``_build_state_pack(tree, cfg)[0]``: the carry
     rides each beam slot's packed state row across frames (all slots
     start at the tree root = row 0), saving the per-frame [B,K] row
-    re-gather (102us/frame HLO-profiled at B=64, K=1024). With bigram
+    re-gather. With bigram
     lookahead (single-device) the carry also rides each slot's applied
     correction phi2 (+ its history class at word-set granularity) —
     see _ride_flags. With RNN fusion it additionally holds the
@@ -2350,7 +2337,7 @@ class TreeDecoder:
         self.rnn = rnn_fusion
         # LM gather tables (incl. the replicated probe-chain) built ONCE
         # per decoder — rebuilding per decode call wastes ~10ms+ each,
-        # rebuilding per FRAME collapses throughput (92 -> 3 audio-s/s)
+        # rebuilding per FRAME collapses throughput
         # NOT jitted: builds the dense unigram table host-side
         self.lm_prep = prepare_lookup(lm_tables)
         # word-end selection cannot exceed the number of candidates

@@ -3,7 +3,7 @@
 Re-implements the reference's history-conditioned LM lookahead
 (ref: src/Search/AdvancedTreeSearch/* "full-order sparse LM lookahead"
 and src/Search/LmLookahead.* — per-history lookahead networks computed
-lazily over a condensed tree). The TPU re-design replaces the lazy
+lazily over a condensed tree). The batched re-design replaces the lazy
 per-history tables with a **two-level potential**, chosen so the hot
 loop pays (almost) nothing:
 
@@ -175,7 +175,7 @@ def _forest_intervals(tree: PrefixTree, n_roots: int):
     """DFS word-end-instance intervals over the network's spanning
     forest — VECTORIZED (level sweeps over numpy arrays instead of a
     per-state Python DFS: across-word networks reach millions of
-    states; see docs/PERF.md).
+    states).
 
     Below the roots both search networks are forests: each state's
     spanning parent is its largest non-root in-arc source (the CHAIN
@@ -423,12 +423,10 @@ def _compile_arc_pairs(tree: PrefixTree, node_of, N: int, corr):
         dpair[:, 1:] = corr[:, pnd] - corr[:, pns]
         # dedup identical delta COLUMNS: with num_classes anchors most
         # node crossings share a correction pattern and the majority
-        # are all-zero (measured on the 5k-word bench network: 4739
-        # pair columns -> 1046 unique, 3013 zero), so the hot dpair
-        # table shrinks ~4x — under the decoder's ~1.1MB VMEM pin
-        # budget, where per-candidate gathers run ~1.5ns/row instead
-        # of HBM speed (docs/PERF.md). Values are unchanged: exactness
-        # (phi telescoping) is untouched.
+        # are all-zero (on the 5k-word bench network: 4739 pair columns
+        # -> 1046 unique, 3013 zero), so the hot dpair table shrinks ~4x
+        # and stays small enough for fast memory. Values are unchanged:
+        # exactness (phi telescoping) is untouched.
         uniq, inv = np.unique(dpair.T, axis=0, return_inverse=True)
         inv = inv.reshape(-1)  # numpy 2.x keeps the extra axis
         # invariant: dpair[:, 0] is the always-zero no-crossing column

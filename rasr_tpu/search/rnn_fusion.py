@@ -3,13 +3,13 @@
 Re-implements the role of the reference's in-search neural LM
 (ref: src/Lm/TF* — Lm::TFRecurrentLanguageModel: an RNN LM scored
 DURING decoding with per-history hidden-state caching and batched
-score requests; recombination stays on truncated histories). The TPU
-re-design: RNN hidden states live in a POOL inside the scan carry and
+score requests; recombination stays on truncated histories). The
+batched re-design: RNN hidden states live in a POOL inside the scan carry and
 each hypothesis carries its state's pool ROW as a sort-payload column
 (like the bigram-lookahead class/phi payload — search/decoder.py):
 
 * per frame, the R word-end records batch ONE LSTM step + full-vocab
-  projection on the MXU (their source states are one row gather at the
+  projection as matmuls (their source states are one row gather at the
   carried rows); the new states write one contiguous pool slice and
   the re-entry hypotheses point at it;
 * hypotheses carry a single int32 row — not state vectors — so the
@@ -45,15 +45,17 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from ..models.lm.rnn import lstm_cell
+
 
 @dataclasses.dataclass(frozen=True)
 class RnnFusionTables:
     """Device pytree of the fused RNN LM (plain-array LSTM cell).
 
-    Cell math matches flax's LSTMCell (sigmoid i/f/o, tanh g, hidden
-    bias only): gates = x @ wx + h @ wh + b with gate order [i, f, g,
-    o]. ``word_map`` maps n-gram LM word ids to RNN vocab ids (-1 =
-    OOV: fixed penalty, state unchanged)."""
+    The cell is models/lm/rnn.py's :func:`lstm_cell` (gate order [i,
+    f, g, o]) over the LM's own parameters. ``word_map`` maps n-gram
+    LM word ids to RNN vocab ids (-1 = OOV: fixed penalty, state
+    unchanged)."""
 
     emb: jnp.ndarray  # [Vr, E]
     wx: jnp.ndarray  # [E, 4H]
@@ -86,19 +88,17 @@ jax.tree_util.register_pytree_node(
 
 def cell_step(rnn: RnnFusionTables, x, c, h):
     """Batched LSTM cell step: x [..., E], c/h [..., H] -> (c', h')."""
-    H = rnn.hidden
-    gates = x @ rnn.wx + h @ rnn.wh + rnn.b
-    i = jax.nn.sigmoid(gates[..., :H])
-    f = jax.nn.sigmoid(gates[..., H : 2 * H])
-    g = jnp.tanh(gates[..., 2 * H : 3 * H])
-    o = jax.nn.sigmoid(gates[..., 3 * H :])
-    c2 = f * c + i * g
-    return c2, o * jnp.tanh(c2)
+    return lstm_cell(rnn.wx, rnn.wh, rnn.b, x, c, h)
 
 
 def word_scores(rnn: RnnFusionTables, h, wid):
     """-log p(wid | state h): h [..., H], wid [...] (>=0)."""
-    logits = h @ rnn.proj_w + rnn.proj_b  # [..., Vr]
+    # full precision: these costs decide recombination, and a GPU runs
+    # f32 matmuls in TF32 unless told otherwise
+    logits = (
+        jnp.matmul(h, rnn.proj_w, precision=jax.lax.Precision.HIGHEST)
+        + rnn.proj_b
+    )  # [..., Vr]
     lse = jax.scipy.special.logsumexp(logits, axis=-1)
     Vr = rnn.proj_b.shape[0]
     picked = jnp.sum(
@@ -113,27 +113,17 @@ def build_rnn_fusion(
     weight: float = 0.5,
     oov_cost: float = 99.0,
 ) -> RnnFusionTables:
-    """Extract the flax LSTM LM into decoder fusion tables.
+    """Extract the LSTM LM's parameters into decoder fusion tables.
 
     ``ngram_vocab`` is the decoder LM's token->id map (the decoder's
     word ids are n-gram LM ids); tokens absent from the RNN vocab map
     to -1 (OOV)."""
-    p = rnn_lm.params
-    lstm = p["lstm"]
-    wx = np.concatenate(
-        [np.asarray(lstm[k]["kernel"]) for k in ("ii", "if", "ig", "io")],
-        axis=1,
+    # through host numpy, so the tables land on the current default
+    # device whatever device the LM was trained on
+    emb, wx, wh, b, proj_w, proj_b = (
+        np.asarray(rnn_lm.params[k])
+        for k in ("embed", "wx", "wh", "b", "proj_w", "proj_b")
     )
-    wh = np.concatenate(
-        [np.asarray(lstm[k]["kernel"]) for k in ("hi", "hf", "hg", "ho")],
-        axis=1,
-    )
-    b = np.concatenate(
-        [np.asarray(lstm[k]["bias"]) for k in ("hi", "hf", "hg", "ho")]
-    )
-    emb = np.asarray(p["embed"]["embedding"])
-    proj_w = np.asarray(p["proj"]["kernel"])
-    proj_b = np.asarray(p["proj"]["bias"])
     H = wh.shape[0]
 
     V = max(ngram_vocab.values()) + 1 if ngram_vocab else 1

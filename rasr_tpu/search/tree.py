@@ -323,7 +323,7 @@ def _build_across_word_tree(
 ) -> PrefixTree:
     """Across-word search network: exact word-boundary triphone contexts.
 
-    Structure (the TPU-dense form of the reference's across-word model —
+    Structure (the dense-array form of the reference's across-word model —
     context-conditioned tree copies in Search::WordConditionedTreeSearch /
     AdvancedTreeSearch):
 

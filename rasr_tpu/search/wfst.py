@@ -6,7 +6,7 @@ composed transducers instead of the lexical prefix tree). Instead of a
 separate search implementation, any search network expressed as an
 emission-labeled transducer compiles into the SAME :class:`PrefixTree`
 array format the vectorized token-passing decoder consumes — one search
-kernel, two network compilers (TPU-native separation: the kernel is
+kernel, two network compilers (the separation: the kernel is
 network-agnostic, networks are data).
 
 Transducer convention (an "HC-level" machine):

@@ -13,6 +13,7 @@ import sys
 import traceback
 from typing import List, Optional, Sequence
 
+from ..utils.compile_cache import enable_compile_cache
 from ..utils.component import Component, ParameterString
 from ..utils.config import Configuration
 from ..utils.logging import LogManager
@@ -84,6 +85,7 @@ class Application(Component):
                 d = f" (default: {default!r})" if default not in (None, "") else ""
                 print(f"  --{cls.name}.{pname}{d}{'  ' + doc if doc else ''}")
             return 0
+        enable_compile_cache()
         config = Configuration()
         rest = config.parse_args(argv)
         if "--dump-config" in rest:

@@ -54,7 +54,6 @@ def frontend_spec_from_config(component):
         splice_context=int(scope.param("splice", 0)),
         lda=lda,
         delta_order=int(scope.param("delta-order", 0)),
-        use_pallas=str(scope.param("use-pallas", "false")).lower() == "true",
     )
     return cfg, kwargs
 

@@ -101,7 +101,7 @@ class NnTrainerTool(Application):
     l2 = ParameterFloat("l2", default=0.0)
     optimizer = ParameterChoice("optimizer", ["sgd", "momentum", "adam"], default="momentum")
     seed = ParameterInt("seed", default=0)
-    #: "bfloat16" runs the gemms at the MXU's native bf16 rate
+    #: "bfloat16" runs the gemms at the native bf16 rate
     compute_dtype = ParameterChoice(
         "compute-dtype", ["float32", "bfloat16"], default="float32"
     )

@@ -6,7 +6,7 @@ stage artifacts keep that role (each trainer writes its own files), and
 this module adds full training-state checkpoints (params + optimizer +
 step + data-iterator cursor) as flax-msgpack + JSON metadata, so NN
 epochs can resume mid-schedule on preemption — the elastic behavior a
-TPU pod job needs. The format is deliberately plain (one msgpack blob
+preemptible accelerator job needs. The format is deliberately plain (one msgpack blob
 per step, replicated params): swap in orbax.checkpoint when training
 states grow beyond one host's params (sharded/async saves); the manager
 API (save/restore/latest_step) is the orbax CheckpointManager subset so

@@ -12,7 +12,7 @@ with the classic row-iterative solution for diagonal covariances
 (Gales 1998, "Maximum likelihood linear transformations for HMM-based
 speech recognition").
 
-TPU-native split: the only O(T) work — the per-row statistics
+Device/host split: the only O(T) work — the per-row statistics
 
     G_i = sum_t c_{t,i} xi_t xi_t^T      c_{t,i} = sum_k gamma_{t,k} / sigma^2_{m_t,k,i}
     k_i = sum_t a_{t,i} xi_t             a_{t,i} = sum_k gamma_{t,k} mu_{m_t,k,i} / sigma^2_{m_t,k,i}

@@ -7,7 +7,7 @@ Baum-Welch updates; covered here by train/discriminative.py). LF-MMI is
 its modern successor (PAPERS.md: "GPU-Accelerated Forward-Backward
 algorithm with Application to Lattice-Free MMI"): the denominator is a
 SMALL PHONE-LM GRAPH evaluated exactly every step — no decoding pass,
-no lattices — which is exactly the TPU-friendly shape: the denominator
+no lattices — which is exactly the accelerator-friendly shape: the denominator
 forward pass is T logsumexp mat-vecs over a dense [S, S] transition
 matrix, batched over utterances, and the MMI gradient w.r.t. the
 emission scores (numerator minus denominator occupancies) falls out of
@@ -74,7 +74,7 @@ def build_phone_bigram_den(
     States are (phone, hmm_state) chains with the model's loop/forward
     TDPs; leaving a phone's last state applies exit TDP + bigram cost
     into every next phone's first state. S = sum of per-phone states —
-    dense and tiny (e.g. 40x3 = 120), so the forward pass is an MXU-
+    dense and tiny (e.g. 40x3 = 120), so the forward pass is a matmul-
     friendly [S, S] mat-"vec" per frame.
     """
     P = num_phones

@@ -19,7 +19,7 @@ back off to the global class below a minimum occupancy (the reference's
 regression-tree min-count behavior, with a flat two-level tree:
 global -> classes).
 
-TPU-native split: statistics are jitted einsums over frames (the only
+Device/host split: statistics are jitted einsums over frames (the only
 O(T) work); the per-class solves are tiny host [D+1]^2 inversions.
 """
 

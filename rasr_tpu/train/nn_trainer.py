@@ -6,7 +6,7 @@ minibatch SGD backprop with cross-entropy against forced-alignment state
 labels, seeded shuffled minibatch assembly from feature+alignment caches,
 L2 regularization, learning-rate schedules, state-prior estimation).
 
-TPU-natively: frames from an utterance batch are flattened and shuffled
+On the device: frames from an utterance batch are flattened and shuffled
 once per epoch with a seeded permutation (reproducible like the
 reference's seeded shuffling), minibatches are fixed-shape slices, the
 update step is one jitted optax transaction, and data parallelism comes

@@ -3,8 +3,8 @@
 Re-implements the reference's VTLN estimation scheme (ref: the
 Signal::Warping nodes + the standard RASR grid-search recipe): for each
 speaker, forced-align their utterances under a grid of warping factors
-and pick the alpha with the best total alignment likelihood. TPU-
-natively all factors of the grid evaluate as one batched sweep — the
+and pick the alpha with the best total alignment likelihood. Here
+all factors of the grid evaluate as one batched sweep — the
 frontend is cheap, so the whole grid is a handful of jit calls.
 """
 

@@ -1,6 +1,6 @@
 """Structured logging channels.
 
-TPU-native replacement for the reference's channel/XML-log system
+Structured replacement for the reference's channel/XML-log system
 (ref: src/Core/Channel.{hh,cc}, src/Core/XmlStream.*): every component
 resolves named channels (log / warning / error / statistics) to targets;
 records are structured (JSONL) rather than XML, preserving the same

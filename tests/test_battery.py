@@ -68,7 +68,7 @@ def test_battery_bites_under_tight_pruning(task, reference):
 def test_battery_production_point_holds_parity(task, reference):
     """The pinned production operating point: search-induced WER within
     0.5% absolute of the reference decode and near-zero search-error
-    mass (VERDICT r1 item 2's done-criterion)."""
+    mass."""
     prod = BeamConfig(
         max_hyps=256, beam=90.0, word_end_limit=64, root_hyps=16,
         lm_scale=LM_SCALE,

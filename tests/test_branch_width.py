@@ -3,8 +3,8 @@
 The compact path packs the selected branch hypotheses' overflow arcs
 contiguously into a static slot budget instead of the padded
 [branch_hyps, max_degree] fan (ref shape: the fan-out expansion of
-src/Search/AdvancedTreeSearch SearchSpace expansion; this is the TPU
-width-budget form). Contract:
+src/Search/AdvancedTreeSearch SearchSpace expansion; this is the
+static width-budget form). Contract:
 
 * with branch_width >= branch_hyps * max_degree the candidate set is
   IDENTICAL to the dense fan — same words, same scores, under tight
@@ -13,7 +13,7 @@ width-budget form). Contract:
   worst-ranked hyps' arcs only).
 
 Word-scope skip networks are the target shape (finite cross-phone
-skips double the junction fan: docs/PERF.md).
+skips double the junction fan).
 """
 
 import math

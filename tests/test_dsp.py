@@ -2,7 +2,7 @@
 
 The reference's src/Signal/ carries ~10k LoC of miscellaneous DSP flow
 nodes beyond the MFCC path (SURVEY §2.2 "Misc DSP"); these tests pin
-the TPU-batched equivalents against brute-force host oracles.
+the batched equivalents against brute-force host oracles.
 """
 
 import math

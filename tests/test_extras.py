@@ -288,7 +288,7 @@ def test_mpe_accumulation_runs(rng):
 
 def test_profiling_helper(tmp_path):
     """profile_call traces a jitted fn and parses the hlo_stats table
-    (rows are TPU-only; on the CPU test backend an empty list is the
+    (rows come only from an accelerator; on the CPU test backend an empty list is the
     documented result — the call path itself must work everywhere)."""
     import jax
     import jax.numpy as jnp

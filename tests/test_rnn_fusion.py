@@ -22,7 +22,8 @@ from rasr_tpu.corpus.lexicon import Lexicon, build_default_silence
 from rasr_tpu.models.hmm import HmmTopology, Tdp, TransitionModel
 from rasr_tpu.models.lm.arpa import NgramLm
 from rasr_tpu.models.lm.ngram_tpu import compile_ngram
-from rasr_tpu.models.lm.rnn import LstmLmModule, RnnLm
+from rasr_tpu.models.lm.rnn import RnnLm
+from rasr_tpu.models.lm.rnn import forward as rnn_forward
 from rasr_tpu.models.tying import MonophoneStateTying
 from rasr_tpu.ops.viterbi import viterbi_align
 from rasr_tpu.search.decoder import BeamConfig, TreeDecoder
@@ -41,15 +42,48 @@ def rnnlm():
     return RnnLm.train_from_text(sents, embed_dim=8, hidden_dim=12, epochs=30)
 
 
+def _flax_lstm_logits(params, toks):
+    """Independent oracle: flax's LSTMCell + Dense over the same
+    parameters (gate kernels split back into flax's per-gate layout)."""
+    nn = pytest.importorskip("flax.linen")
+    H = params["wh"].shape[0]
+    E = params["wx"].shape[0]
+    gate = lambda w, g: w[:, g * H : (g + 1) * H]
+    lstm = {}
+    for g, name in enumerate("ifgo"):
+        lstm["i" + name] = {"kernel": gate(params["wx"], g)}
+        lstm["h" + name] = {
+            "kernel": gate(params["wh"], g),
+            "bias": params["b"][g * H : (g + 1) * H],
+        }
+    cell = nn.OptimizedLSTMCell(H)
+    carry = cell.initialize_carry(jax.random.PRNGKey(0), (toks.shape[0], E))
+    emb = params["embed"][toks]
+    out = []
+    for t in range(toks.shape[1]):
+        carry, y = cell.apply({"params": lstm}, carry, emb[:, t])
+        out.append(
+            nn.Dense(params["proj_b"].shape[0]).apply(
+                {"params": {"kernel": params["proj_w"], "bias": params["proj_b"]}},
+                y,
+            )
+        )
+    return jnp.stack(out, axis=1)
+
+
 def test_cell_matches_flax_module(rnnlm):
-    """The extracted plain-array LSTM cell + projection reproduce the
-    flax module bit-for-bit (same params, same math)."""
+    """The plain-array LSTM (the LM's own forward and the extracted
+    fusion cell + projection) reproduces flax's LSTMCell over the same
+    parameters (same math)."""
     vocab = rnnlm.vocab
     fusion = build_rnn_fusion(rnnlm, vocab, weight=1.0)
     rng = np.random.default_rng(0)
     toks = rng.integers(0, len(vocab), size=(2, 5)).astype(np.int32)
-    logits_ref, _ = rnnlm.module.apply(
-        {"params": rnnlm.params}, jnp.asarray(toks)
+    with jax.default_matmul_precision("highest"):
+        logits_ref = _flax_lstm_logits(rnnlm.params, jnp.asarray(toks))
+    logits_own, _ = rnn_forward(rnnlm.params, jnp.asarray(toks))
+    np.testing.assert_allclose(
+        np.asarray(logits_own), np.asarray(logits_ref), atol=1e-5
     )
     H = fusion.hidden
     c = jnp.zeros((2, H))

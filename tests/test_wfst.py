@@ -110,8 +110,7 @@ def test_wfst_bigram_lookahead_exact_shaping():
     add-back of the junction node's correction).
 
     Ref: SURVEY §2.5 src/Search/Wfst/ — the reference's LM lookahead
-    covers statically composed search spaces, not just the prefix tree;
-    this was VERDICT r3 missing item #3."""
+    covers statically composed search spaces, not just the prefix tree."""
     from rasr_tpu.search.lookahead import build_bigram_lookahead
 
     words = ["A", "B", "C", "D"]
